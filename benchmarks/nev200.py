@@ -1,16 +1,15 @@
 import os, time
 import sys as _s, os as _o; _s.path.insert(0, _o.path.dirname(_o.path.dirname(_o.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 import jax
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gcge_tpu.utils.compile_cache import use_compile_cache
+use_compile_cache()
 import numpy as np
-from bench import build_3d27
+from gcge_tpu.io.stencil import laplacian_27pt
 from gcge_tpu.ops.operators import make_operator
 from gcge_tpu.solvers.gcg import GCGParams, gcg_solve
 
-rows, cols, vals, n = build_3d27(54)
+rows, cols, vals, n = laplacian_27pt(54)
 dia64 = make_operator(rows, cols, vals, (n, n))
 params = GCGParams(nev=200, block_size=40, max_iter=150, verbose=0,
                    cg_max_iter=30, fuse=20, cg_mixed=True, cg_refine=2,

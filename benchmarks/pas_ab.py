@@ -1,5 +1,5 @@
-"""A/B: PAS vs GCG+AMG-preconditioning on a >=3-level hierarchy (VERDICT
-round-1 item 5 — "an A/B showing where PAS wins").
+"""A/B: PAS vs GCG+AMG-preconditioning on a >=3-level hierarchy — an A/B
+showing where PAS wins.
 
 Problem: 3D 27-point Laplacian at production n (the bench.py operator),
 nev = PAS_NEV (default 50).  Both solvers run through the public api.solve
@@ -9,25 +9,24 @@ Usage: python benchmarks/pas_ab.py          [PAS_NX=54 PAS_NEV=50]
 """
 import os
 import sys as _s, os as _o; _s.path.insert(0, _o.path.dirname(_o.path.dirname(_o.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 import time
 
 import jax
 import numpy as np
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gcge_tpu.utils.compile_cache import use_compile_cache
+use_compile_cache()
 
 import scipy.sparse as sps
 
-from bench import build_3d27
+from gcge_tpu.io.stencil import laplacian_27pt
 from gcge_tpu import solve
 
 NX = int(os.environ.get("PAS_NX", 54))
 NEV = int(os.environ.get("PAS_NEV", 50))
 
-rows, cols, vals, n = build_3d27(NX)
+rows, cols, vals, n = laplacian_27pt(NX)
 a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
 print(f"n={n} nnz={a.nnz} nev={NEV}", flush=True)
 

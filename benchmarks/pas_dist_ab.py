@@ -1,5 +1,5 @@
 """Distributed PAS vs distributed GCG(+AMG) at moderate scale — PAS at its
-design point (VERDICT r4 item 7).
+design point.
 
 The reference's PAS rationale is multi-node scale: fine-level work becomes
 communication-bound and the multilevel correction structure moves most
@@ -9,7 +9,7 @@ n=512k / 3-4 levels through the public api.solve surface and records
 wall + converged counts.  One physical core drives all 8 virtual devices,
 so the walls measure WORK (not parallel speed) and collectives are
 near-free — the regime maximally favorable to flat GCG; the recorded
-comparison is an upper bound on how well PAS can do on this image.
+comparison is an upper bound on how well PAS can do on a CPU host.
 
 Usage: python benchmarks/pas_dist_ab.py   [PAS_NX=80 PAS_NEV=50 PAS_DEV=8]
 """
@@ -31,14 +31,14 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import scipy.sparse as sps
 
-from bench import build_3d27
+from gcge_tpu.io.stencil import laplacian_27pt
 from gcge_tpu import solve
 
 NX = int(os.environ.get("PAS_NX", 80))
 NEV = int(os.environ.get("PAS_NEV", 50))
 
 assert len(jax.devices()) >= NDEV, jax.devices()
-rows, cols, vals, n = build_3d27(NX)
+rows, cols, vals, n = laplacian_27pt(NX)
 a = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
 print(f"n={n} nnz={a.nnz} nev={NEV} devices={NDEV} (virtual, 1 core)",
       flush=True)

@@ -1,17 +1,16 @@
-"""Phase-timer profile: nev=50 bench operator, fuse=0, real TPU."""
+"""Phase-timer profile: nev=50 bench operator, fuse=0 (one dispatch per phase)."""
 import sys as _s, os as _o; _s.path.insert(0, _o.path.dirname(_o.path.dirname(_o.path.abspath(__file__))))
 import os, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 import jax
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from gcge_tpu.utils.compile_cache import use_compile_cache
+use_compile_cache()
 import numpy as np
-from bench import build_3d27
+from gcge_tpu.io.stencil import laplacian_27pt
 from gcge_tpu.ops.operators import make_operator
 from gcge_tpu.solvers.gcg import GCGParams, gcg_solve
 
-rows, cols, vals, n = build_3d27(54)
+rows, cols, vals, n = laplacian_27pt(54)
 dia64 = make_operator(rows, cols, vals, (n, n))
 params = GCGParams(nev=50, block_size=10, max_iter=30, verbose=1,
                    cg_max_iter=30, fuse=0, cg_mixed=True, cg_refine=2,

@@ -1,9 +1,8 @@
-"""gcge_tpu — a TPU-native (JAX/XLA/Pallas) sparse eigensolver framework.
+"""gcge_tpu — a sparse eigensolver framework on JAX/XLA.
 
 Computes the smallest ``nev`` eigenpairs of large symmetric (generalized)
 eigenproblems ``A x = lambda B x`` with the GCG algorithm — a block damping
-inverse-power iteration on the subspace ``V = [X, P, W]`` — re-designed
-TPU-first:
+inverse-power iteration on the subspace ``V = [X, P, W]``:
 
 * multivectors are plain ``jnp`` arrays of shape ``(n, m)`` (possibly sharded
   over a device mesh), every block op is a pure jittable function;
@@ -11,10 +10,10 @@ TPU-first:
   X/P/W bookkeeping of the reference (``/root/reference/src/ops_eig_sol_gcg.c``)
   are expressed with masks and counts instead of shrinking arrays;
 * distribution is row-partitioning over a ``jax.sharding.Mesh`` with
-  ``shard_map`` + ``psum``/``all_gather`` collectives (the TPU analogue of the
-  reference's MPI row-blocks + ``MPI_Allreduce``);
-* hot kernels (SpMM, fused QtAP) have Pallas implementations for f32 and
-  XLA fallbacks for f64 (XLA:TPU emulates f64 in double-word f32).
+  ``shard_map`` + ``psum``/``all_gather``/``ppermute`` collectives (the
+  analogue of the reference's MPI row-blocks + ``MPI_Allreduce``);
+* sparse operators pick a layout from the pattern (DIA shift-FMA for banded
+  matrices, gather-ELL otherwise); every kernel is XLA's.
 
 The reference's OPS vtable (``/root/reference/src/ops.h:43-152``) maps to a
 small ``LinearOperator`` protocol plus the functional multivector ops in
@@ -30,8 +29,8 @@ from gcge_tpu.ops.operators import (
     SparseOperator,
 )
 from gcge_tpu.api import eigsh, solve
-from gcge_tpu.ops.operators import (DiaDF64Operator, DiaOperator,
-                                    FunctionOperator, make_operator)
+from gcge_tpu.ops.operators import (DiaOperator, FunctionOperator,
+                                    make_operator)
 from gcge_tpu.solvers.gcg import GCGParams, GCGResult, gcg_solve
 from gcge_tpu.solvers.bpcg import BlockPCGParams, block_pcg, pcg
 from gcge_tpu.solvers.orth import bgs_orth, orth_block, orth_against
@@ -43,7 +42,6 @@ __all__ = [
     "DenseOperator",
     "DiagOperator",
     "FunctionOperator",
-    "DiaDF64Operator",
     "DiaOperator",
     "IdentityOperator",
     "ShiftedOperator",

@@ -5,7 +5,7 @@ wraps the whole pipeline in a single call: ``(eval, evec, nevConv) =
 gcge(A, B, nev, tols, nevMax, blockSize, nevInit, numIterMax, gapMin)`` over a
 MATLAB sparse matrix.  :func:`solve` is that entry point for the Python
 ecosystem: it accepts scipy sparse / dense numpy / prebuilt operators, picks
-the best TPU layout (DIA when the pattern is banded — optionally after RCM
+the best sparse layout (DIA when the pattern is banded — optionally after RCM
 reordering — ELL otherwise), optionally distributes over all devices, runs
 GCG and returns ``(eval, evec, nev_conv)`` in the original row order.
 """
@@ -79,55 +79,6 @@ def eigsh(a, k: int = 6, M=None, which: str = "SM", v0=None,
     return np.asarray(ev[:k]), np.asarray(evec)[:, :k]
 
 
-def _mixed_capable_a(a) -> bool:
-    """Whether A will land on an operator type `_compute_w`'s mixed branch
-    supports (DIA / ELL / hybrid / one-hot — i.e. sparse input or a prebuilt
-    sparse-layout operator).  Dense ndarrays, 1-D diagonals, DenseOperator
-    and user LinearOperators route to the plain f64 CG instead: the mixed
-    fast path's f32 kernels only exist for the sparse layouts."""
-    try:
-        import scipy.sparse as sps
-
-        if sps.issparse(a):
-            return True
-    except Exception:  # pragma: no cover - scipy is baked into the image
-        pass
-    from gcge_tpu.ops.operators import (DiaOperator, EllOneHotOperator,
-                                        HybridOperator, SparseOperator)
-
-    return isinstance(a, (DiaOperator, EllOneHotOperator, HybridOperator,
-                          SparseOperator))
-
-
-def _tuned_defaults(backend: str, method: str, distribute, a, b,
-                    nev: int = 0) -> dict:
-    """Production-tuned TPU profile applied as DEFAULTS by :func:`solve`
-    (any explicit kwarg wins): fused dispatch chunks, mixed-precision inner
-    CG riding the f32 Pallas kernels, auto shift — the bench/PERFORMANCE.md
-    parameterization.  Measured through the public surface at nev=50,
-    n=157k: 24.8 s untuned -> ~2.5 s tuned.  The mixed inner CG requires
-    B = None or diagonal AND a sparse-layout A; restricted to the
-    single-device gcg path (distributed/pas keep explicit control).
-
-    Huge-nev exception: past nev ~250 (projected m ~700 at the auto
-    blocking) the FUSED chunk's remote compile cost turns superlinear and
-    never finishes (PERFORMANCE.md 'Compile-cost anatomy'), while the
-    phased path compiles in minutes and its per-phase dispatch overhead is
-    noise against multi-second iterations at that size — so the fuse
-    default drops to 0 there."""
-    if backend != "tpu" or method != "gcg" or distribute:
-        return {}
-    from gcge_tpu.ops.operators import DiagOperator, IdentityOperator
-
-    tuned = {"fuse": 20 if nev < 250 else 0, "cg_auto_shift": True,
-             "cg_refine": 2}
-    if (b is None or (isinstance(b, np.ndarray) and b.ndim == 1) or
-            isinstance(b, (DiagOperator, IdentityOperator))) and \
-            _mixed_capable_a(a):
-        tuned["cg_mixed"] = True
-    return tuned
-
-
 def solve(
     a,
     b=None,
@@ -186,9 +137,6 @@ def solve(
     from gcge_tpu.solvers.gcg import GCGParams, gcg_solve
 
     if params is None:
-        for k, v in _tuned_defaults(jax.default_backend(), method,
-                                    distribute, a, b, nev).items():
-            kwargs.setdefault(k, v)
         params = GCGParams(nev=nev, **kwargs)
     dtype = params.dtype
 

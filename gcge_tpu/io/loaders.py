@@ -88,7 +88,7 @@ def write_ccs_binary(path: str, rows, cols, vals, n: int):
     """Write a CSC matrix in the plain binary format ``native/ref_bench.c``
     reads (``-matA``/``-matB``): int64 n, int64 nnz, int64 j_col[n+1],
     int32 i_row[nnz], f64 data[nnz].  Used to hand the reference library the
-    SAME matrices the TPU bench solves (BASELINE.md: reference numbers must
+    SAME matrices the bench solves (BASELINE.md: reference numbers must
     be measured, not cited)."""
     import numpy as np
 

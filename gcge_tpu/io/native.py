@@ -2,7 +2,7 @@
 
 The native layer plays the role the reference delegates to PETSc/MKL/PHG for
 host-side matrix work: fast file ingestion, RCM bandwidth reduction (which
-unlocks the gather-free DIA TPU kernel on irregular matrices) and ELL packing.
+unlocks the gather-free DIA SpMM on irregular matrices) and ELL packing.
 The library is built on demand with the repo Makefile; every entry point has a
 pure-numpy fallback so the framework works without a C++ toolchain.
 """

@@ -1,12 +1,12 @@
 """Block (multi-vector) operations.
 
 A *multivector* is a ``jnp`` array of shape ``(n, m)`` whose columns are the
-vectors.  These functions are the TPU-native re-design of the reference's
+vectors.  These functions are the re-design of the reference's
 default multi-vector ops (``/root/reference/src/ops_multi_vec.c:97-411``) and
 the dense workhorse kernel ``DenseMatQtAP``
 (``/root/reference/app/app_lapack.c:24-227``): instead of a vtable of
 column-looped primitives, each op is a single fused XLA expression (one or two
-MXU matmuls) that jit/vmap/shard_map compose over.
+matmuls) that jit/vmap/shard_map compose over.
 
 All functions are pure and shape-polymorphic; under ``shard_map`` the global
 inner products reduce with ``psum`` (see ``gcge_tpu.parallel.dist_ops``),
@@ -19,14 +19,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Chunk length for Gram-type contractions.  TPU f64 is emulated: a single
-# long dot over the n axis accumulates a relative error that GROWS with n and
-# is systematically biased when the two operands are correlated (measured on
-# TPU v5e: ~5e-8 at n=4k, ~3.5e-7 at n=262k on the Gram diagonal — f32-level,
-# destroying orthogonalization).  Splitting the contraction into <=GRAM_CHUNK
-# row chunks (batched MXU matmuls) and summing the per-chunk results with
-# emulated-f64 adds (accurate to ~1e-14) restores f64 quality: measured
-# ~4e-15 diagonal error at n=65k.  This is the framework's equivalent of the
+# Chunk length for Gram-type contractions: the contraction over the n axis
+# is split into <=GRAM_CHUNK row chunks (batched matmuls) whose partial
+# results are summed in f64 — a pairwise-style summation that keeps the
+# Gram's rounding error from growing with n.  The framework's answer to the
 # compensated-precision requirement SURVEY.md §7 flags as hard part (c).
 GRAM_CHUNK = 256
 
@@ -34,9 +30,8 @@ GRAM_CHUNK = 256
 def col_dots(x: jax.Array, y: jax.Array) -> jax.Array:
     """Accurate per-column dots ``sum(x*y, axis=0)`` — the 'D' inner product.
 
-    Uses elementwise multiply + axis-sum (VPU, accurate f64 emulation on TPU,
-    measured 2e-14) instead of an einsum->dot lowering (f32-level on TPU for
-    the self-correlated case, e.g. ``r.T r`` residual norms)."""
+    Uses elementwise multiply + axis-sum instead of an einsum->dot lowering:
+    XLA fuses it into one reduction, and in f32 it never runs as TF32."""
     return jnp.sum(x * y, axis=0)
 
 
@@ -44,7 +39,7 @@ def col_dots(x: jax.Array, y: jax.Array) -> jax.Array:
 # the one-shot einsum materializes (k, mx, my) before the f64 cross-chunk
 # sum — at huge-nev widths (m ~ 1000, n ~ 157k -> k ~ 616) that is tens of
 # GB and the compiler OOMs.  Past the budget the chunks are accumulated by
-# a lax.scan in groups (identical numerics: per-chunk MXU products, f64
+# a lax.scan in groups (identical numerics: per-chunk products, f64
 # adds between), bounding live memory at ~GRAM_PART_BYTES.
 GRAM_PART_BYTES = 256 * 2**20
 
@@ -97,8 +92,8 @@ def block_inner(x: jax.Array, y: jax.Array, mode: str = "N") -> jax.Array:
     ``(m,)`` — the reference's 'D' mode
     (``/root/reference/src/ops_multi_vec.c:151-201``).
 
-    All modes use the compensated chunked/elementwise formulations required
-    for f64 accuracy on TPU (see :data:`GRAM_CHUNK`).
+    All modes use the chunked/elementwise formulations (see
+    :data:`GRAM_CHUNK`).
     """
     if mode == "D":
         return col_dots(x, y)
@@ -151,11 +146,11 @@ def qtap(
     """Fused ``Q^T A P``.
 
     ``a_matvec`` is a callable multivector product ``X -> A @ X`` (or ``None``
-    for ``A = I``).  Modes as in :func:`block_inner`.  This is the TPU analogue
+    for ``A = I``).  Modes as in :func:`block_inner`.  This is the analogue
     of ``MultiVecQtAP`` / ``DenseMatQtAP``
     (``/root/reference/src/ops_multi_vec.c:351-411``,
     ``/root/reference/app/app_lapack.c:24-227``): one operator application plus
-    one MXU GEMM, fusable by XLA.
+    one GEMM, fusable by XLA.
     """
     ap = p if a_matvec is None else a_matvec(p)
     return block_inner(q, ap, mode)

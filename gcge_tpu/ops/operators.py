@@ -1,4 +1,4 @@
-"""Linear operators — the TPU re-design of the reference's backend layer.
+"""Linear operators — the re-design of the reference's backend layer.
 
 The reference dispatches matrix kinds through an ``OPS_`` vtable filled by one
 of seven backends (``/root/reference/app/``).  Here an operator is a pytree
@@ -7,8 +7,10 @@ shape ``(n, m)``; solvers are generic over it and everything jits.
 
 * :class:`DenseOperator`   — dense symmetric matrix (app_lapack analogue).
 * :class:`SparseOperator`  — ELL-packed sparse matrix (app_ccs analogue);
-  ``matvec`` is a gather-SpMM (XLA) with a Pallas f32 fast path in
-  ``gcge_tpu.ops.spmm_pallas``.
+  ``matvec`` is a gather-SpMM.
+* :class:`DiaOperator`     — diagonal (DIA) storage; ``matvec`` is a
+  gather-free shift-and-FMA.
+* :class:`HybridOperator`  — DIA core plus a thin ELL remainder.
 * :class:`DiagOperator`    — diagonal (mass) matrix.
 * :class:`IdentityOperator`— B = I for standard problems.
 * :class:`ShiftedOperator` — ``A + sigma*B`` represented functionally, the
@@ -38,7 +40,7 @@ class LinearOperator:
 
 @jax.tree_util.register_pytree_node_class
 class DenseOperator(LinearOperator):
-    """Dense symmetric operator; matvec is one MXU GEMM."""
+    """Dense symmetric operator; matvec is one GEMM."""
 
     def __init__(self, a: jax.Array):
         self.a = a
@@ -192,9 +194,8 @@ def _ell_spmm(values: jax.Array, indices: jax.Array, x: jax.Array) -> jax.Array:
     Row-wise gather formulation; padded entries carry ``values == 0`` and
     ``indices`` pointing at row 0 so they contribute nothing.  Unrolled over
     the (static, small) ELL width so XLA fuses the gather + FMA chain; memory
-    traffic is ``kmax`` passes over ``x`` worst-case, typically cached in VMEM
-    tiles.  The f32 Pallas kernel (``gcge_tpu/ops/spmm_pallas.py``) replaces
-    this on the hot path.
+    traffic is ``kmax`` passes over ``x`` worst-case, mostly served from
+    cache.
     """
     kmax = values.shape[1]
 
@@ -210,10 +211,10 @@ def _ell_spmm(values: jax.Array, indices: jax.Array, x: jax.Array) -> jax.Array:
 class SparseOperator(LinearOperator):
     """Symmetric sparse operator in ELL (padded-row) layout.
 
-    The TPU replacement for the reference's CCS backend
+    The replacement for the reference's CCS backend
     (``/root/reference/app/app_ccs.c:50-139``): instead of a scalar CSC loop,
     rows are padded to the max row length so the SpMM is a static-shape
-    gather + FMA pipeline (VPU) — no dynamic sparsity structure inside jit.
+    gather + FMA pipeline — no dynamic sparsity structure inside jit.
     """
 
     def __init__(self, values: jax.Array, indices: jax.Array, n_cols: int):
@@ -284,8 +285,7 @@ class DiaOperator(LinearOperator):
 
     ``y[i] = sum_d values[d, i] * x[i + offsets[d]]`` with *static* diagonal
     offsets: each term is a shift (pad + slice) and an FMA — no gathers at
-    all, so it vectorizes perfectly on the VPU and is implementable as a
-    Pallas kernel (Mosaic has no in-kernel gather).  This is the TPU-native
+    all, so XLA fuses the whole sum into one elementwise pass.  This is the
     answer to stencil/banded matrices — FEM Laplacians on structured meshes,
     and general matrices after RCM bandwidth reduction whose nonzeros
     concentrate on few diagonals.  Replaces the scalar CSC loop of the
@@ -343,17 +343,16 @@ class DiaOperator(LinearOperator):
         offs = cols - rows
         uniq = np.unique(offs)
         values = np.zeros((len(uniq), n_rows), dtype=np.dtype(jnp.dtype(dtype).name))
-        dmap = {o: i for i, o in enumerate(uniq)}
         d_idx = np.searchsorted(uniq, offs)
-        values[d_idx, rows] = vals
+        np.add.at(values, (d_idx, rows), vals)    # duplicates sum, as in COO
         return cls(jnp.asarray(values), tuple(uniq.tolist()), n_cols)
 
     def matvec_t(self, xt):
         """Transposed-layout matvec: ``xt (m, n) -> (A @ x)^T (m, n)``.
 
         Same shift-and-FMA formulation with the row index on the LAST axis —
-        the layout of the Pallas kernel and of transposed hot loops (the
-        mixed-precision inner CG), avoiding per-matvec transposes.
+        the layout of transposed hot loops (the mixed-precision inner CG),
+        avoiding per-matvec transposes.
         """
         n = self.values.shape[1]
         m = xt.shape[0]
@@ -384,112 +383,6 @@ class DiaOperator(LinearOperator):
     @staticmethod
     def n_diagonals(rows, cols) -> int:
         return len(np.unique(np.asarray(cols) - np.asarray(rows)))
-
-
-@jax.tree_util.register_pytree_node_class
-class DiaDF64Operator(DiaOperator):
-    """DIA operator stored as double-f32 planes — the f64 Pallas fast path.
-
-    Mosaic (Pallas TPU) cannot take f64 operands, so the f64 DIA SpMM
-    otherwise runs through XLA's emulation (~15 Gnnz/s measured vs ~55 for
-    the f32 Pallas kernel).  This operator stores the values as an
-    unevaluated f32 ``hi + lo`` pair (split once at construction; 48-bit
-    effective mantissa, representation error ~4e-15 relative) and runs the
-    error-free-transform Pallas kernel
-    (:func:`gcge_tpu.ops.spmm_pallas.dia_spmm_pallas_t_df64`) on TPU —
-    ~2x the XLA f64 path at the same HBM bytes.  Off-TPU (and for shapes
-    past the VMEM guard) it reconstructs f64 and uses the XLA shift path,
-    so results are platform-portable to ~1e-14.
-    """
-
-    def __init__(self, values_hi, values_lo, offsets, n_cols: int,
-                 values_hi_pad=None, values_lo_pad=None):
-        self.values_hi = values_hi    # (ndiag, n) f32
-        self.values_lo = values_lo    # (ndiag, n) f32
-        # optional planes PRE-PADDED to the Pallas kernel's tile grid —
-        # built once by from_dia; the per-call pad inside the kernel is a
-        # full copy of the values that XLA does not hoist out of solver
-        # loops (measured 0.64 -> 0.52 ms per bench matvec once removed).
-        # Sharded construction (parallel.dist_ops.shard_operator) passes
-        # None: shard-local widths must stay exact.
-        self.values_hi_pad = values_hi_pad
-        self.values_lo_pad = values_lo_pad
-        self.offsets = tuple(int(o) for o in offsets)
-        self.n_cols = int(n_cols)
-
-    @property
-    def values(self):
-        """f64 reconstruction (exact: hi + lo is f64-representable)."""
-        return (self.values_hi.astype(jnp.float64)
-                + self.values_lo.astype(jnp.float64))
-
-    @property
-    def shape(self):
-        return (self.values_hi.shape[1], self.n_cols)
-
-    @property
-    def dtype(self):
-        return jnp.float64
-
-    @property
-    def nnz(self):
-        return int(np.asarray(jnp.count_nonzero(
-            self.values_hi.astype(jnp.float64)
-            + self.values_lo.astype(jnp.float64))))
-
-    def _use_pallas(self, x):
-        return jax.default_backend() == "tpu" and x.dtype == jnp.float64
-
-    def _planes(self):
-        if self.values_hi_pad is not None:
-            return self.values_hi_pad, self.values_lo_pad
-        return self.values_hi, self.values_lo
-
-    def matvec(self, x):
-        if self._use_pallas(x):
-            from gcge_tpu.ops.spmm_pallas import dia_spmm_pallas_t_df64
-
-            vh, vl = self._planes()
-            return dia_spmm_pallas_t_df64(vh, vl, self.offsets, x.T).T
-        return super().matvec(x)
-
-    def matvec_t(self, xt):
-        if self._use_pallas(xt):
-            from gcge_tpu.ops.spmm_pallas import dia_spmm_pallas_t_df64
-
-            vh, vl = self._planes()
-            return dia_spmm_pallas_t_df64(vh, vl, self.offsets, xt)
-        return super().matvec_t(xt)
-
-    def tree_flatten(self):
-        return ((self.values_hi, self.values_lo, self.values_hi_pad,
-                 self.values_lo_pad), (self.offsets, self.n_cols))
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(children[0], children[1], aux[0], aux[1],
-                   children[2], children[3])
-
-    @classmethod
-    def from_dia(cls, dia: DiaOperator) -> "DiaDF64Operator":
-        from gcge_tpu.ops.spmm_pallas import split_df32
-
-        hi, lo = split_df32(dia.values.astype(jnp.float64))
-        ndiag, n = hi.shape
-        span = max(abs(o) for o in dia.offsets) if dia.offsets else 0
-        tn = max(4096, -(-max(span, 1) // 512) * 512)
-        n_pad = -(-n // tn) * tn
-
-        def pad(v):
-            return jnp.zeros((ndiag, n_pad), v.dtype).at[:, :n].set(v)
-
-        return cls(hi, lo, dia.offsets, dia.n_cols, pad(hi), pad(lo))
-
-    @classmethod
-    def from_coo(cls, rows, cols, vals, shape, dtype=jnp.float64):
-        assert jnp.dtype(dtype) == jnp.float64, "DiaDF64Operator is f64-only"
-        return cls.from_dia(DiaOperator.from_coo(rows, cols, vals, shape,
-                                                 dtype=dtype))
 
 
 @jax.tree_util.register_pytree_node_class
@@ -557,62 +450,9 @@ class HybridOperator(LinearOperator):
         return cls(dia, ell)
 
 
-@jax.tree_util.register_pytree_node_class
-class EllOneHotOperator(SparseOperator):
-    """Irregular operator: windowed one-hot MXU planes + gather-ELL fallback.
-
-    The f32 one-hot kernel (:mod:`gcge_tpu.ops.onehot_pallas`) serves the
-    inner-CG stages; the df64 one-hot kernel serves EVERY f64 A-application
-    (residual checks, Rayleigh-Ritz Grams, initial RR, mixed-CG refreshes)
-    at full f64 quality — the gather-ELL path (0.03 Gnnz/s measured, ~30x
-    slower) remains only as the off-TPU fallback.  This is the
-    irregular-matrix analogue of :class:`DiaDF64Operator`'s role for banded
-    matrices."""
-
-    def __init__(self, values, indices, n_cols: int, oh):
-        super().__init__(values, indices, n_cols)
-        self.oh = oh
-
-    def _use_pallas(self, x):
-        return jax.default_backend() == "tpu" and x.dtype == jnp.float64
-
-    def matvec(self, x):
-        if self._use_pallas(x):
-            return self.oh.matvec_t_df64(x.T).T
-        return super().matvec(x)
-
-    def matvec_t(self, xt):
-        """Transposed-layout f64 matvec (native layout of the df64 kernel)."""
-        if self._use_pallas(xt):
-            return self.oh.matvec_t_df64(xt)
-        return super().matvec(xt.T).T
-
-    def tree_flatten(self):
-        return (self.values, self.indices, self.oh), (self.n_cols,)
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(children[0], children[1], aux[0], children[2])
-
-    @classmethod
-    def from_coo(cls, rows, cols, vals, shape, dtype=jnp.float64,
-                 r_tile: int = 256, w_tile: int = 256, j_max: int = 128,
-                 group: int = 8):
-        # defaults = the round-4 production sweep winner (256/256/J=128/G=8:
-        # f32 7.5 ms, df64 12.5 ms on the 4.0M-nnz Delaunay matrix at bs=10
-        # — the grouped grid amortizes the ~0.2 us/step fixed cost)
-        from gcge_tpu.ops.onehot_pallas import OneHotOperator
-
-        base = SparseOperator.from_coo(rows, cols, vals, shape, dtype=dtype)
-        oh = OneHotOperator.from_coo(rows, cols, vals, shape, r_tile=r_tile,
-                                     w_tile=w_tile, j_max=j_max, group=group)
-        return cls(base.values, base.indices, base.n_cols, oh)
-
-
 def make_operator(rows, cols, vals, shape, dtype=jnp.float64,
                   max_diags: int = 128, hybrid_cover: float = 0.85,
-                  hybrid_max_ell_width: int = 8, df64: bool | None = None,
-                  onehot_min_fill: float = 0.15):
+                  hybrid_max_ell_width: int = 8):
     """Pick the best sparse layout for the pattern:
 
     * **DIA** when everything sits on few diagonals (stencils, RCM-banded);
@@ -620,22 +460,9 @@ def make_operator(rows, cols, vals, shape, dtype=jnp.float64,
       diagonals cover ``hybrid_cover`` of the nonzeros and the remainder is
       a thin ELL;
     * **ELL** otherwise.
-
-    ``df64``: store f64 DIA values as double-f32 planes so the SpMM runs the
-    Pallas df64 kernel (:class:`DiaDF64Operator`).  ``None`` = auto: on when
-    the default backend is TPU and dtype is f64 (there the "true" f64 path is
-    itself ~2^-47 emulation, so the 48-bit planes lose nothing).
     """
     rows = np.asarray(rows)
     cols = np.asarray(cols)
-    if df64 is None:
-        df64 = (jax.default_backend() == "tpu"
-                and jnp.dtype(dtype) == jnp.float64)
-
-    def _dia(*args, **kw):
-        op = DiaOperator.from_coo(*args, **kw)
-        return DiaDF64Operator.from_dia(op) if df64 else op
-
     if shape[0] != shape[1]:
         # DIA/Hybrid shift semantics assume a square operator; rectangular
         # matrices (multigrid transfer P) stay in the gather-ELL layout
@@ -643,31 +470,14 @@ def make_operator(rows, cols, vals, shape, dtype=jnp.float64,
     offs = cols - rows
     uniq, counts = np.unique(offs, return_counts=True)
     if len(uniq) <= max_diags:
-        return _dia(rows, cols, vals, shape, dtype=dtype)
+        return DiaOperator.from_coo(rows, cols, vals, shape, dtype=dtype)
     order = np.argsort(-counts)
     covered = counts[order[:max_diags]].sum() / max(len(offs), 1)
     if covered >= hybrid_cover:
         out = ~np.isin(offs, uniq[order[:max_diags]])
         width = np.bincount(rows[out], minlength=shape[0]).max() if out.any() else 0
         if width <= hybrid_max_ell_width:
-            hyb = HybridOperator.from_coo(rows, cols, vals, shape,
-                                          dtype=dtype, max_diags=max_diags)
-            if df64:
-                hyb = HybridOperator(DiaDF64Operator.from_dia(hyb.dia), hyb.ell)
-            return hyb
-    # genuinely irregular pattern: gather-ELL, plus the one-hot MXU planes
-    # when they can be the fast path (TPU f64).  Guard on the PREDICTED pair
-    # fill first (cheap, no pair-array allocation): for scattered patterns
-    # (no RCM, wide bandwidth) P approaches nnz — the pair arrays would cost
-    # many GB and the kernel's cost model ((W+R)*bs/fill MACs per nnz)
-    # collapses, so the gather path must stay the default there.
-    if jax.default_backend() == "tpu" and jnp.dtype(dtype) == jnp.float64:
-        from gcge_tpu.ops.onehot_pallas import pack_onehot_stats
-
-        st = pack_onehot_stats(rows, cols, shape[0], r_tile=256, w_tile=256,
-                               j_max=256)
-        nnz = len(np.asarray(vals))
-        if st["fill"] >= onehot_min_fill and st["bytes"] <= 8 * 12 * nnz:
-            return EllOneHotOperator.from_coo(rows, cols, vals, shape,
-                                              dtype=dtype)
+            return HybridOperator.from_coo(rows, cols, vals, shape,
+                                           dtype=dtype, max_diags=max_diags)
+    # genuinely irregular pattern: gather-ELL
     return SparseOperator.from_coo(rows, cols, vals, shape, dtype=dtype)

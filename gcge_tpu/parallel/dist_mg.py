@@ -4,7 +4,7 @@ The reference redistributes coarse-grid matrices onto a SUBSET of MPI ranks
 (``proc_rate[]`` comm-split + intercomm machinery,
 ``/root/reference/app/app_slepc.c:648-809``) because tiny coarse levels are
 latency-bound: an Allreduce over 1152 ranks costs more than the coarse solve.
-The TPU-native resolution is stronger: the finest level (where all the data
+The resolution here is stronger: the finest level (where all the data
 is) stays row-sharded over the mesh, and every coarser level is fully
 REPLICATED — each device redundantly computes the identical (tiny) coarse
 work, which costs no communication at all and keeps XLA's program SPMD.

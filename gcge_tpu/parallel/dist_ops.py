@@ -2,14 +2,11 @@
 
 The reference's distributed SpMM (PHG backend, ``app_phg.c:292-359``) scatters
 the needed halo of x, runs the local SpMM, and accumulates off-process rows —
-point-to-point halo exchange overlapped with compute.  On a TPU mesh the
-bandwidth-optimal first cut is simpler: ``all_gather`` the (thin) multivector
-over ICI once, then each device SpMMs its local row block against the global
-x.  For x of shape (n, bs) with bs = O(block_size) this moves n*bs values per
-device per matvec — the same volume a halo scheme moves in the worst case —
-and it pipelines with the local gather-FMA work inside one fused XLA region.
-A Pallas halo/overlap kernel is the planned upgrade for matrices whose
-ELL column footprint is narrow (see ops/spmm_pallas.py).
+point-to-point halo exchange overlapped with compute.  Here banded (DIA)
+operators do the same with two ``ppermute`` halo messages per matvec; other
+layouts ``all_gather`` the (thin) multivector once and each device SpMMs its
+local row block against the global x.  For x of shape (n, bs) with
+bs = O(block_size) that moves n*bs values per device per matvec.
 
 ``RowShardedOperator`` wraps any inner operator whose arrays are row-sharded;
 ``matvec`` runs under ``shard_map`` so collectives are explicit and the inner
@@ -25,7 +22,6 @@ from jax import shard_map
 
 from gcge_tpu.ops.operators import (
     DenseOperator,
-    DiaDF64Operator,
     DiaOperator,
     DiagOperator,
     HybridOperator,
@@ -33,11 +29,7 @@ from gcge_tpu.ops.operators import (
     LinearOperator,
     SparseOperator,
 )
-from gcge_tpu.parallel.mesh import COLS, ROWS, mv_spec, shard_rows
-
-# Tests set this to route the sharded DIA window through the Pallas kernels
-# in interpret mode on the CPU mesh; on TPU the kernels are used regardless.
-_FORCE_HALO_PALLAS = False
+from gcge_tpu.parallel.mesh import COLS, ROWS, shard_rows
 
 
 def _mv_spec_for(mesh: Mesh, x) -> P:
@@ -48,59 +40,6 @@ def _mv_spec_for(mesh: Mesh, x) -> P:
     if COLS in mesh.axis_names and x.shape[1] % mesh.shape[COLS] == 0:
         return P(ROWS, COLS)
     return P(ROWS, None)
-
-
-@jax.tree_util.register_pytree_node_class
-class OneHotShardPack(LinearOperator):
-    """Row-sharded irregular operator in per-device one-hot pair layout.
-
-    Storage is the stacked output of
-    :func:`gcge_tpu.ops.onehot_pallas.pack_onehot_sharded`: device ``s``
-    holds the one-hot pairs of its row block re-indexed into its halo-window
-    coordinates, so the local SpMM is the UNCHANGED square one-hot MXU
-    kernel on a ``nw = ln + hl + hr`` window — the irregular-matrix analogue
-    of the DIA neighbor-halo path (and of the reference's distributed CCS
-    SpMM, ``app_slepc.c:155-216``).  Both the f32 and the full-f64 df64
-    kernels ride it.
-    """
-
-    def __init__(self, t_ids, w_ids, rloc, cloc, pvals, pvals_lo,
-                 n: int, hl: int, hr: int, nw: int, n_pad: int, ln: int,
-                 r_tile: int, w_tile: int):
-        self.t_ids, self.w_ids = t_ids, w_ids
-        self.rloc, self.cloc = rloc, cloc
-        self.pvals, self.pvals_lo = pvals, pvals_lo
-        self.n, self.hl, self.hr = int(n), int(hl), int(hr)
-        self.nw, self.n_pad, self.ln = int(nw), int(n_pad), int(ln)
-        self.r_tile, self.w_tile = int(r_tile), int(w_tile)
-
-    @property
-    def shape(self):
-        return (self.n, self.n)
-
-    @property
-    def dtype(self):
-        return jnp.float64
-
-    def local_op(self):
-        """Per-device square OneHotOperator over the halo window (call
-        inside shard_map: the leading device axis must already be local)."""
-        from gcge_tpu.ops.onehot_pallas import OneHotOperator
-
-        return OneHotOperator(
-            self.t_ids[0], self.w_ids[0], self.rloc[0], self.cloc[0],
-            self.pvals[0], self.pvals_lo[0], self.nw, self.n_pad,
-            self.r_tile, self.w_tile)
-
-    def tree_flatten(self):
-        return ((self.t_ids, self.w_ids, self.rloc, self.cloc, self.pvals,
-                 self.pvals_lo),
-                (self.n, self.hl, self.hr, self.nw, self.n_pad, self.ln,
-                 self.r_tile, self.w_tile))
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(*children, *aux)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -139,7 +78,10 @@ class RowShardedOperator(LinearOperator):
 
             def f(values, indices, x_local):
                 xg = jax.lax.all_gather(x_local, ROWS, axis=0, tiled=True)
-                local = SparseOperator(values, indices, n_cols)
+                # the SpMM runs in the input's precision: f32 input (the
+                # mixed inner CG's stages) takes the f32 SpMM
+                local = SparseOperator(values.astype(xg.dtype), indices,
+                                       n_cols)
                 return local.matvec(xg)
 
             return shard_map(
@@ -149,9 +91,6 @@ class RowShardedOperator(LinearOperator):
                 out_specs=xspec,
                 check_vma=False,
             )(inner.values, inner.indices, x)
-
-        if isinstance(inner, OneHotShardPack):
-            return self._onehot_matvec(x)
 
         if isinstance(inner, DiaOperator):
             return self._dia_matvec(x)
@@ -186,11 +125,11 @@ class RowShardedOperator(LinearOperator):
         A DIA matrix couples row ``i`` only to rows ``i + off_d`` with static
         offsets, so a device owning a contiguous row block needs just
         ``hl = -min(off)`` rows from its left neighbor and ``hr = max(off)``
-        from its right — two ``ppermute`` messages of ``halo * m`` values over
-        ICI instead of all-gathering the full ``(n, m)`` multivector.  This is
-        the TPU-native form of the reference's point-to-point halo-exchange
-        SpMM (PHG backend, ``/root/reference/app/app_phg.c:292-359``); XLA
-        overlaps the ppermutes with the interior shift-FMA work.  Wraparound
+        from its right — two ``ppermute`` messages of ``halo * m`` values
+        instead of all-gathering the full ``(n, m)`` multivector.  This is
+        the form of the reference's point-to-point halo-exchange
+        SpMM (PHG backend, reference ``app/app_phg.c:292-359``); XLA can
+        overlap the ppermutes with the interior shift-FMA work.  Wraparound
         halo rows at the global boundary are annihilated by the DIA zero
         padding (``A[i, i+off]`` outside the matrix is stored as 0).  Falls
         back to all-gather + windowing when the band exceeds the local block.
@@ -205,45 +144,16 @@ class RowShardedOperator(LinearOperator):
         ln = n // ndev
         halo_ok = ndev > 1 and hl <= ln and hr <= ln
 
-        # Per-device window application.  On TPU the local SpMM runs the
-        # Pallas kernel (f32 or the double-f32 f64 path) directly on the
-        # halo window — the halo lanes land where the square kernel keeps
-        # its zero padding, so no value re-packing is needed; off-TPU it is
-        # the XLA shift-FMA.  This closes the gap where the sharded df64
-        # matvec reconstructed f64 and lost the ~2x Pallas advantage.
-        df64 = isinstance(inner, DiaDF64Operator)
-        use_pallas = (jax.default_backend() == "tpu" or _FORCE_HALO_PALLAS) \
-            and (df64 or inner.dtype == jnp.float32)
-        interp = True if _FORCE_HALO_PALLAS and \
-            jax.default_backend() != "tpu" else None
+        vals_args = (inner.values,)
 
-        if use_pallas and df64:
-            from gcge_tpu.ops.spmm_pallas import dia_spmm_pallas_t_df64
-
-            vals_args = (inner.values_hi, inner.values_lo)
-
-            def apply_window(vh, vl, xw):
-                return dia_spmm_pallas_t_df64(
-                    vh, vl, offsets, xw.T, interpret=interp,
-                    halo=(hl, hr)).T
-        elif use_pallas:
-            from gcge_tpu.ops.spmm_pallas import dia_spmm_pallas_t
-
-            vals_args = (inner.values,)
-
-            def apply_window(v, xw):
-                return dia_spmm_pallas_t(
-                    v, offsets, xw.T, interpret=interp, halo=(hl, hr)).T
-        else:
-            vals_args = (inner.values,)
-
-            def apply_window(v, xw):
-                # y[i] = sum_d v[d, i] * xw[hl + i + off_d]
-                y = jnp.zeros((v.shape[1], xw.shape[1]), xw.dtype)
-                for d, off in enumerate(offsets):
-                    y = y + v[d][:, None] * jax.lax.slice_in_dim(
-                        xw, hl + off, hl + off + v.shape[1], axis=0)
-                return y
+        def apply_window(v, xw):
+            # y[i] = sum_d v[d, i] * xw[hl + i + off_d], in xw's precision
+            v = v.astype(xw.dtype)
+            y = jnp.zeros((v.shape[1], xw.shape[1]), xw.dtype)
+            for d, off in enumerate(offsets):
+                y = y + v[d][:, None] * jax.lax.slice_in_dim(
+                    xw, hl + off, hl + off + v.shape[1], axis=0)
+            return y
 
         vspecs = (P(None, ROWS),) * len(vals_args)
 
@@ -269,9 +179,9 @@ class RowShardedOperator(LinearOperator):
                 # accumulation), expressed as DATAFLOW: the interior SpMM
                 # consumes a ZERO halo so it carries no dependency on the
                 # ppermutes, and the halo contributions are separate small
-                # edge corrections — XLA's async collective-permute then
-                # overlaps the exchange with the (Pallas) interior kernel
-                # instead of serializing behind the window concatenation.
+                # edge corrections — XLA's async collective-permute can then
+                # overlap the exchange with the interior shift-FMA instead of
+                # serializing behind the window concatenation.
                 *vals, x_local = args
                 m = x_local.shape[1]
                 left = jax.lax.ppermute(x_local[ln - hl:], ROWS, fwd) \
@@ -280,15 +190,10 @@ class RowShardedOperator(LinearOperator):
                     if hr else None
                 xw0 = jnp.pad(x_local, ((hl, hr), (0, 0)))
                 y = apply_window(*vals, xw0)          # interior, halo-free
-                vmain = vals[0]                       # (ndiag, ln) [hi plane]
-                vlo = vals[1] if len(vals) > 1 else None
+                vmain = vals[0]                       # (ndiag, ln)
 
                 def vrow(d, sl):
-                    v = vmain[d, sl]
-                    if vlo is not None:
-                        v = v.astype(jnp.float64) + \
-                            vlo[d, sl].astype(jnp.float64)
-                    return v.astype(y.dtype)
+                    return vmain[d, sl].astype(y.dtype)
 
                 # edge corrections: offsets crossing the left boundary touch
                 # only rows [0, -off), the right boundary rows [ln-off, ln)
@@ -325,71 +230,6 @@ class RowShardedOperator(LinearOperator):
             out_specs=xspec, check_vma=False,
         )(*vals_args, x)
 
-    def _onehot_matvec(self, x):
-        """Irregular SpMM with neighbor-halo exchange on one-hot packs.
-
-        The mirror of :meth:`_dia_matvec` for arbitrary (RCM-banded)
-        patterns: two ``ppermute`` halo messages assemble each device's x
-        window, then the square one-hot MXU kernel runs on the window and
-        the local result is its ``[hl, hl+ln)`` row slice.  Window positions
-        outside the global matrix are never referenced by any pair (packs
-        index only real nonzero columns), so wraparound halo rows are inert.
-        Falls back to all-gather + window slice when the band exceeds the
-        local block.  f64 input rides the df64 kernel, f32 the f32 kernel;
-        off-TPU the kernels run in interpret mode (CPU-mesh tests).
-        """
-        inner, mesh = self.inner, self.mesh
-        ndev = mesh.shape[ROWS]
-        xspec = _mv_spec_for(mesh, x)
-        hl, hr, ln, nw = inner.hl, inner.hr, inner.ln, inner.nw
-        halo_ok = ndev > 1 and hl <= ln and hr <= ln
-        f64 = x.dtype == jnp.float64
-        arrs = (inner.t_ids, inner.w_ids, inner.rloc, inner.cloc,
-                inner.pvals, inner.pvals_lo)
-        aspecs = (P(ROWS, None),) * 2 + (P(ROWS, None, None),) * 4
-        meta = (inner.n, hl, hr, nw, inner.n_pad, ln,
-                inner.r_tile, inner.w_tile)
-
-        def apply_window(pack_arrs, xw):
-            local = OneHotShardPack(*pack_arrs, *meta).local_op()
-            xt = xw.T
-            yt = local.matvec_t_df64(xt) if f64 else local.matvec_t(
-                xt.astype(jnp.float32)).astype(x.dtype)
-            return yt[:, hl:hl + ln].T
-
-        if ndev == 1:
-            def f1(*args):
-                *pack, x_local = args
-                xw = jnp.pad(x_local, ((hl, hr), (0, 0)))
-                return apply_window(pack, xw)
-        elif halo_ok:
-            fwd = [(i, (i + 1) % ndev) for i in range(ndev)]
-            bwd = [(i, (i - 1) % ndev) for i in range(ndev)]
-
-            def f(*args):
-                *pack, x_local = args
-                left = jax.lax.ppermute(x_local[ln - hl:], ROWS, fwd) \
-                    if hl else jnp.zeros((0, x_local.shape[1]), x_local.dtype)
-                right = jax.lax.ppermute(x_local[:hr], ROWS, bwd) \
-                    if hr else jnp.zeros((0, x_local.shape[1]), x_local.dtype)
-                xw = jnp.concatenate([left, x_local, right], axis=0)
-                return apply_window(pack, xw)
-        else:
-            def f(*args):
-                *pack, x_local = args
-                xg = jax.lax.all_gather(x_local, ROWS, axis=0, tiled=True)
-                xpad = jnp.pad(xg, ((hl, hr), (0, 0)))
-                r0 = jax.lax.axis_index(ROWS) * ln
-                xw = jax.lax.dynamic_slice(
-                    xpad, (r0, jnp.int32(0)), (nw, x_local.shape[1]))
-                return apply_window(pack, xw)
-
-        return shard_map(
-            f1 if ndev == 1 else f, mesh=mesh,
-            in_specs=(*aspecs, xspec),
-            out_specs=xspec, check_vma=False,
-        )(*arrs, x)
-
     def tree_flatten(self):
         return (self.inner,), (self.mesh,)
 
@@ -402,43 +242,9 @@ def shard_operator(op: LinearOperator, mesh: Mesh) -> LinearOperator:
     """Row-shard an operator's storage and wrap it for mesh execution."""
     if op is None:
         return None
-    from gcge_tpu.ops.operators import EllOneHotOperator
-    if isinstance(op, EllOneHotOperator):
-        import numpy as np
-
-        from gcge_tpu.ops.onehot_pallas import pack_onehot_sharded
-
-        # recover the COO triplets from the pair layout (padded slots carry
-        # exactly-zero values; drop them), then repack per device
-        oh = op.oh
-        gr = np.asarray(oh.t_ids)[:, None] * oh.r_tile + np.asarray(oh.rloc)
-        gc = np.asarray(oh.w_ids)[:, None] * oh.w_tile + np.asarray(oh.cloc)
-        vh = np.asarray(oh.pvals)
-        v = vh.astype(np.float64) + np.asarray(oh.pvals_lo, np.float64)
-        keep = vh.reshape(-1) != 0.0
-        ndev = mesh.shape[ROWS]
-        arrs, (hl, hr, nw, n_pad, ln) = pack_onehot_sharded(
-            gr.reshape(-1)[keep], gc.reshape(-1)[keep], v.reshape(-1)[keep],
-            oh.n, ndev, oh.r_tile, oh.w_tile, oh.rloc.shape[1])
-        sh2 = NamedSharding(mesh, P(ROWS, None))
-        sh3 = NamedSharding(mesh, P(ROWS, None, None))
-        arrs = tuple(jax.device_put(jnp.asarray(a), sh2 if a.ndim == 2 else sh3)
-                     for a in arrs)
-        inner = OneHotShardPack(*arrs, oh.n, hl, hr, nw, n_pad, ln,
-                                oh.r_tile, oh.w_tile)
-        return RowShardedOperator(inner, mesh)
     if isinstance(op, SparseOperator):
         inner = SparseOperator(
             shard_rows(mesh, op.values), shard_rows(mesh, op.indices), op.n_cols
-        )
-    elif isinstance(op, DiaDF64Operator):
-        # keep the double-f32 planes; on TPU the halo path runs the df64
-        # Pallas kernel per device on the halo window (matvec above)
-        sh = NamedSharding(mesh, P(None, ROWS))
-        inner = DiaDF64Operator(
-            jax.device_put(op.values_hi, sh),
-            jax.device_put(op.values_lo, sh),
-            op.offsets, op.n_cols,
         )
     elif isinstance(op, DiaOperator):
         # DIA stores values as (ndiag, n): the row axis is axis 1

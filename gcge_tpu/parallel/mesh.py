@@ -2,11 +2,11 @@
 
 The reference distributes A, B and all multivectors by *row blocks* over MPI
 ranks (SURVEY.md §2 "Parallelism strategies" #1; PETSc ``Mat``/``BV``,
-``app_slepc.c:49-60``).  The TPU-native equivalent is a 1-D
+``app_slepc.c:49-60``).  The equivalent here is a 1-D
 ``jax.sharding.Mesh`` with one axis, ``"rows"``; every (n, ...) array is
 sharded on its first dimension and every projected/small quantity is
 replicated.  XLA's SPMD partitioner then plays the role of the MPI layer:
-block inner products become local GEMM + all-reduce over ICI, exactly the
+block inner products become local GEMM + all-reduce, exactly the
 local-product + ``MPI_Allreduce`` structure of
 ``ops_multi_vec.c:202-230`` — but inserted by the compiler.
 """
@@ -38,7 +38,7 @@ def grid_mesh(n_rows: int, n_cols: int, devices=None) -> Mesh:
     blocks are replicated along the ``cols`` axis (each column group applies
     the same row block to its slice of columns).  The reference has no
     analogue — its multivectors always keep all columns per rank
-    (``app_slepc.c:49-60``); this is the TPU answer to the huge-nev regime
+    (``app_slepc.c:49-60``); this is the answer to the huge-nev regime
     where one device cannot hold ``n x (nevMax + 2bs)``.
     """
     if devices is None:
@@ -97,13 +97,6 @@ def pad_problem(a_op, b_op, n_devices: int, pad_value: float | None = None):
 
     def pad_square(op, diag_value):
         """Append n_pad decoupled rows with the given diagonal value."""
-        from gcge_tpu.ops.operators import DiaDF64Operator
-
-        if isinstance(op, DiaDF64Operator):
-            # pad the reconstructed f64, then re-split the planes
-            padded = pad_square(DiaOperator(op.values, op.offsets, op.n_cols),
-                                diag_value)
-            return DiaDF64Operator.from_dia(padded)
         if isinstance(op, DiaOperator):
             vals = jnp.pad(op.values, ((0, 0), (0, n_pad)))
             offsets = op.offsets

@@ -3,16 +3,15 @@
 The reference scales over MPI ranks launched by ``mpiexec`` and reads/builds
 each rank's row block locally (PETSc ``MatLoad``/PHG assembly,
 ``/root/reference/test/test_app_slepc.c:416-440``, ``app_phg.c:51-67``).  The
-TPU equivalent is a multi-process JAX program over a DCN-connected slice:
+equivalent here is a multi-process JAX program:
 
-* :func:`bootstrap` — ``jax.distributed.initialize`` with environment
-  auto-detection (on TPU pods the coordinator/process count come from the
-  runtime; elsewhere pass them explicitly).
+* :func:`bootstrap` — ``jax.distributed.initialize`` with the coordinator
+  address, process count and process id passed explicitly.
 * :func:`hybrid_row_mesh` — a 1-D ``rows`` mesh ordered so contiguous row
   blocks live on devices of the same host: the neighbor-halo DIA exchange
-  then rides ICI between in-host neighbors and crosses DCN only at the
-  host boundaries (2 messages of ``halo x m`` per host pair per matvec,
-  the minimum possible).
+  then stays inside a host between in-host neighbors and crosses the
+  network only at the host boundaries (2 messages of ``halo x m`` per host
+  pair per matvec, the minimum possible).
 * :func:`mv_from_host_blocks` / :func:`dia_from_host_blocks` /
   :func:`ell_from_host_blocks` — assemble GLOBAL sharded arrays from
   process-local row blocks without ever materializing the global matrix on
@@ -38,8 +37,7 @@ def bootstrap(coordinator_address: str | None = None,
               local_device_ids=None) -> tuple[int, int]:
     """Initialize multi-process JAX (idempotent).
 
-    On TPU pods all arguments are discovered from the runtime environment;
-    on CPU/GPU clusters pass them explicitly (or set
+    Pass the arguments explicitly (or set
     ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``).
     Returns ``(process_id, process_count)``.  The reference's counterpart is
     ``MPI_Init`` (``test/main.c``); collectives afterwards are XLA's, not
@@ -47,30 +45,14 @@ def bootstrap(coordinator_address: str | None = None,
     """
     # IMPORTANT: do not touch jax.process_count()/jax.devices() here — any
     # backend query initializes XLA, after which distributed.initialize()
-    # refuses to run.  Probe the distributed runtime state directly.
-    try:
-        is_init = getattr(jax.distributed, "is_initialized", None)
-        if is_init is not None:
-            already = bool(is_init())
-        else:  # older jax: probe the internal state
-            from jax._src import distributed as _dist
-
-            already = _dist.global_state.client is not None
-    except Exception:
-        already = False
-    if coordinator_address is not None and not already:
-        try:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
-                local_device_ids=local_device_ids,
-            )
-        except RuntimeError as e:
-            # a failed probe (private-API drift) must degrade to a no-op on
-            # an already-initialized runtime, not crash
-            if "already initialized" not in str(e).lower():
-                raise
+    # refuses to run.
+    if coordinator_address is not None and not jax.distributed.is_initialized():
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+            local_device_ids=local_device_ids,
+        )
     return jax.process_index(), jax.process_count()
 
 
@@ -79,7 +61,7 @@ def hybrid_row_mesh(devices=None) -> Mesh:
 
     ``jax.devices()`` is already sorted by process index, so contiguous row
     blocks map to devices grouped by host: halo ppermutes between block
-    neighbors stay on ICI inside a host and cross DCN only once per host
+    neighbors stay inside a host and cross the network only once per host
     boundary.  (For bandwidth-bound all-gather operators consider a 2-D
     ``grid_mesh`` with hosts on the outer axis instead.)
     """

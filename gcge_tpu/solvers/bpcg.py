@@ -1,12 +1,12 @@
 """Block preconditioned conjugate gradient with per-column convergence masks.
 
-TPU re-design of ``BlockPCG`` (``/root/reference/src/ops_lin_sol.c:140-437``).
+Re-design of ``BlockPCG`` (reference ``src/ops_lin_sol.c:140-437``).
 The reference compacts converged columns out of an ``unconv[]`` index list and
 batches matvecs over contiguous runs; under XLA we keep every shape static and
 instead *freeze* converged columns with a mask: their ``alpha``/``beta`` become
 zero so ``x, r, p`` stop changing, while the matvec always runs on the full
-block (one large MXU/SpMM call per iteration — on TPU one big matvec beats
-many ragged ones).  The loop is a single ``lax.while_loop`` so the whole solve
+block (one large SpMM call per iteration — one big matvec beats many
+ragged ones).  The loop is a single ``lax.while_loop`` so the whole solve
 is one compiled region with an early exit when every column froze — the
 analogue of ``while (niter<max_iter && num_unconv>0)``.
 
@@ -42,7 +42,9 @@ class BlockPCGInfo:
 
 
 def _col_dots(x, y, psum_axis=None):
-    d = jnp.sum(x * y, axis=0)  # accurate on TPU emulated f64 (see multivec.col_dots)
+    # elementwise multiply + sum (see multivec.col_dots): no GEMM, so an
+    # f32 solve never drops to TF32
+    d = jnp.sum(x * y, axis=0)
     if psum_axis is not None:
         d = jax.lax.psum(d, psum_axis)
     return d
@@ -149,9 +151,8 @@ def block_pcg_t(
 ):
     """Transposed-layout block CG: all arrays are ``(m, n)`` (columns of the
     mathematical multivector live on ROWS; the grid index is the last,
-    lane-friendly axis).  This is the layout of the Pallas DIA kernel
-    (``ops/spmm_pallas.py``) — running the whole CG loop here makes the inner
-    solve transpose-free.  Semantics identical to :func:`block_pcg`,
+    contiguous axis).  This is the layout of ``DiaOperator.matvec_t`` —
+    running the whole CG loop here makes the inner solve transpose-free.  Semantics identical to :func:`block_pcg`,
     including the ``tol_type='user'``/``norm_b`` stopping rule
     (``ops_lin_sol.c:186-192``) and the ``precond`` hook (``R -> M^{-1} R``
     in the SAME (m, n) layout) — the reference composes an external solver
@@ -164,7 +165,7 @@ def block_pcg_t(
         active0 = jnp.ones((m,), dtype=bool)
 
     def dots(x, y):
-        d = jnp.sum(x * y, axis=1)  # accurate on TPU emulated f64
+        d = jnp.sum(x * y, axis=1)  # elementwise, as _col_dots
         if psum_axis is not None:
             d = jax.lax.psum(d, psum_axis)
         return d

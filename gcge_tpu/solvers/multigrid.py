@@ -286,7 +286,7 @@ def bamg_solve(
     ``dinv``/``lam_max`` per level).
 
     The whole V-cycle (a static recursion over levels) is traced ONCE into a
-    single jitted program — on TPU every cycle is one dispatch.
+    single jitted program — every cycle is one dispatch.
     """
     a_op = hier.levels[level].a_op
     x = jnp.zeros_like(b) if x0 is None else x0

@@ -7,7 +7,7 @@ hierarchy; on each finer level improve the eigenpairs with inverse-power
 corrections solved by block AMG and a Rayleigh-Ritz step over the *augmented*
 subspace that couples a small dense block with the fine-grid vectors.
 
-TPU-native re-design:
+Re-design:
 
 * The composite object ``PASMAT = [XX XQ; QX QQ]`` acting on
   ``PASVEC = (dense u, grid q)`` (``app_pas.h:18-31``) becomes
@@ -31,7 +31,7 @@ TPU-native re-design:
   subspace ``q = -Xp u``.  The reference runs GCG on that degenerate pencil
   and relies on its rank-revealing orthogonalization to continually deflate
   the null directions (``OrthXtoQ``'s aux-space B-solve, ``:391-532``,
-  exists to fight exactly this).  On TPU the explicit span gives the same
+  exists to fight exactly this).  The explicit span gives the same
   per-sweep subspace ``span[X | N]`` with a standard SPD metric, no
   deflation fights, and static shapes; the repeated
   correction+RR sweeps play the role of GCG's inner iterations on the
@@ -124,13 +124,13 @@ def _rr_over_span(a_op, b_op, s, nev, zero_tol=1e-13):
     h = h + jnp.diag((1.0 - mvalid) * big)
     from gcge_tpu.ops.eighs import eigh
 
-    w, c = eigh(h, "auto")   # Jacobi-polished on TPU (see ops.eighs)
+    w, c = eigh(h, "auto")
     return w[:nev], q @ c[:, :nev]
 
 
 @jax.jit
 def _rel_res_jit(a_op, b_op, x, lam):
-    """Blockwise relative residuals, one dispatch (remote-endpoint friendly)."""
+    """Blockwise relative residuals, one dispatch."""
     bx = x if b_op is None else b_op.matvec(x)
     r = a_op.matvec(x) - bx * lam[None, :]
     return jnp.sqrt(col_dots(r, r)) / jnp.maximum(jnp.abs(lam), 1e-300)
@@ -143,9 +143,7 @@ def _pas_sweep(hier_sub, a_op, b_op, x, lam, nev: int, cycles: int,
                composite: bool = False):
     """One fused PAS sweep: inverse-power correction by ``cycles`` AMG
     V-cycles + Rayleigh-Ritz over the augmented span — ONE device dispatch
-    (the reference pays per-phase MPI/host round-trips; on a remote TPU
-    endpoint the dispatch latency would otherwise dominate the multilevel
-    driver).
+    (the reference pays per-phase MPI/host round-trips).
 
     ``composite=True`` runs the Rayleigh-Ritz through
     :class:`AugmentedOperator` — the reference-faithful PASMAT path

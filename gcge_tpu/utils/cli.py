@@ -9,8 +9,8 @@ The reference parses flags with a linear argv scan
 ``-nevConv -nevMax -blockSize -nevInit``
 (``test/test_eig_sol_gcg.c:40-46``).  This module maps the same names onto
 :class:`~gcge_tpu.solvers.gcg.GCGParams`; flags that configure reference
-internals with no TPU analogue (orthogonalization method strings — there is
-one TPU-native orthogonalizer) are accepted and recorded but have no effect,
+internals with no analogue here (orthogonalization block sizes and
+re-orth counts) are accepted and recorded but have no effect,
 so existing scripts keep running.
 """
 
@@ -46,7 +46,7 @@ _FLAG_MAP = {
     "-fuse_hotswap": ("fuse_hotswap", str),
 }
 
-# accepted for compatibility; recorded in `extras`, no TPU-side effect
+# accepted for compatibility; recorded in `extras`, no effect here
 _COMPAT_FLAGS = {
     "-gcge_given_nevec": int,
     "-gcge_user_defined_multi_lin_sol": int,
@@ -109,7 +109,7 @@ def params_from_args(
                     fields["orth_method"] = "bgs"
                 elif "mgs" in meth or meth == "m":
                     fields["orth_method"] = "mgs"
-                # 'evp'/anything else: the TPU-default EVP kernel
+                # 'evp'/anything else: the default EVP kernel
             i += 2
         else:
             i += 1
@@ -138,14 +138,14 @@ def print_usage(printer=print):
     printer(f" -gcge_compW_cg_auto_shift <i>: auto sigma        (default {int(d.cg_auto_shift)})")
     printer(f" -gcge_compW_cg_shift <f>: manual sigma           (default {d.cg_shift})")
     printer(" (reference -gcge_*_orth_* and -gcge_compRR_* flags are accepted")
-    printer("  for compatibility; the TPU build has a single EVP orthogonalizer")
-    printer("  and a replicated eigh so they have no effect)")
+    printer("  for compatibility; the orth method strings select evp/bgs/mgs,")
+    printer("  the rest have no effect: the eigh is replicated)")
 
 
 def main(argv=None):
     """Console entry point (``gcge-solve``): delegates to the full driver in
     ``examples/gcge_solve.py`` semantics — loads/assembles a matrix, picks
-    the TPU layout, runs GCG, prints eigenvalues.  The flag surface is the
+    the sparse layout, runs GCG, prints eigenvalues.  The flag surface is the
     reference's ``-gcge_*`` namespace plus driver flags (see
     :func:`print_usage` and the examples docstring)."""
     import sys

@@ -2,13 +2,13 @@
 //
 // The reference offloads matrix handling to heavyweight native stacks
 // (PETSc/Hypre/PHG/MKL, plus converters in /root/reference/test/mat_convert.c).
-// This single-file C++ library provides the TPU framework's host-side native
+// This single-file C++ library provides the framework's host-side native
 // runtime for matrix ingestion and packing:
 //
 //   * mm_stat / mm_read  — fast MatrixMarket coordinate parser (symmetric
 //     expansion included), ~10x faster than numpy.loadtxt on 10M-nnz files.
 //   * rcm_order          — reverse Cuthill-McKee bandwidth reduction, the
-//     enabler for the gather-free DIA/banded TPU SpMM on irregular matrices.
+//     enabler for the gather-free DIA/banded SpMM on irregular matrices.
 //   * coo_to_ell         — padded-row (ELL) packing with row-major layout.
 //   * bandwidth / n_diagonals — structure probes used for layout selection.
 //

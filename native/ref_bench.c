@@ -4,7 +4,7 @@
  * (the upstream repo publishes no benchmarks).  This driver links against
  * the unmodified reference sources (/root/reference/src, /root/reference/app
  * — compiled to objects by native/Makefile, never copied into this repo),
- * builds the same 3D 27-point Laplacian the TPU bench uses (bench.py), and
+ * builds the same 3D 27-point Laplacian the GPU bench uses (bench.py), and
  * runs the reference GCG eigensolver through its public setup protocol
  * (mirroring /root/reference/test/test_eig_sol_gcg.c:28-140) with the
  * production parameterization of /root/reference/test/submit.sh:34-44.
@@ -68,7 +68,7 @@ static double wtime(void)
 /* Load a CSC matrix from the simple binary format written by
  * benchmarks/irregular.py (gcge_tpu.io.loaders.write_ccs_binary):
  *   int64 n, int64 nnz, int64 j_col[n+1], int32 i_row[nnz], f64 data[nnz]
- * Lets the reference measure the SAME irregular matrices the TPU bench
+ * Lets the reference measure the SAME irregular matrices the GPU bench
  * solves (the reference rig's SuiteSparse files are not fetchable here). */
 static CCSMAT load_ccs(const char *path)
 {

@@ -153,14 +153,14 @@ def test_make_operator_layout_selection(rng):
 
 def test_safe_eigh_shift_restore():
     """safe_eigh's always-on Tikhonov shift must restore eigenvalues exactly
-    (guards the TPU emulated-f64 eigh NaN failure; see ops/eighs.py)."""
+    (guards the device-eigh NaN failure; see ops/eighs.py)."""
     import numpy as np
     import jax.numpy as jnp
     from gcge_tpu.ops.eighs import safe_eigh
 
     rng = np.random.default_rng(11)
     # near-singular PSD Gram: eigenvalues spanning 1e-14 .. 2 (the regime
-    # that NaNs the TPU device eigh)
+    # where a device eigh can return NaN)
     q, _ = np.linalg.qr(rng.standard_normal((24, 24)))
     d = np.concatenate([np.full(12, 2.0), 10.0 ** rng.uniform(-14, -10, 12)])
     g = (q * d[None, :]) @ q.T
@@ -305,57 +305,6 @@ def test_api_pas_knobs_and_coarse_nev():
     assert res.nev_conv >= nev
     np.testing.assert_allclose(res.eval, laplacian_1d_eigs(n)[:nev],
                                rtol=1e-6)
-
-
-def test_tuned_defaults_profile():
-    """api.solve applies the production TPU profile as overridable defaults
-    (PERFORMANCE.md parameterization), and stays hands-off where it must."""
-    import numpy as np
-    import scipy.sparse as sps
-
-    from gcge_tpu.api import _tuned_defaults
-
-    a_sp = sps.identity(5).tocsr()
-    t = _tuned_defaults("tpu", "gcg", False, a_sp, None)
-    assert t["fuse"] > 0 and t["cg_auto_shift"] and t["cg_mixed"]
-    # generalized sparse B: mixed CG unsupported -> not defaulted on
-    t2 = _tuned_defaults("tpu", "gcg", False, a_sp, sps.identity(5).tocsr())
-    assert "cg_mixed" not in t2 and t2["fuse"] > 0
-    # diagonal B as 1-D array: mixed ok
-    assert _tuned_defaults("tpu", "gcg", False, a_sp, np.ones(5))["cg_mixed"]
-    # dense / 1-D diagonal / user-operator A: the mixed branch has no f32
-    # fast path for those layouts — not defaulted on (ADVICE r4 high)
-    assert "cg_mixed" not in _tuned_defaults(
-        "tpu", "gcg", False, np.eye(5), None)
-    assert "cg_mixed" not in _tuned_defaults(
-        "tpu", "gcg", False, np.ones(5), None)
-    from gcge_tpu.ops.operators import DenseOperator
-    import jax.numpy as jnp
-    assert "cg_mixed" not in _tuned_defaults(
-        "tpu", "gcg", False, DenseOperator(jnp.eye(5)), None)
-    # prebuilt sparse-layout operator A: mixed ok
-    from gcge_tpu.ops.operators import DiaOperator
-    dia = DiaOperator(jnp.ones((1, 5)), jnp.zeros(1, jnp.int32), 5)
-    assert _tuned_defaults("tpu", "gcg", False, dia, None)["cg_mixed"]
-    # off-TPU / pas / distributed: untouched
-    assert _tuned_defaults("cpu", "gcg", False, a_sp, None) == {}
-    assert _tuned_defaults("tpu", "pas", False, a_sp, None) == {}
-    assert _tuned_defaults("tpu", "gcg", "rows", a_sp, None) == {}
-
-
-def test_tuned_defaults_huge_nev_drops_fuse():
-    """Past nev ~250 the fused chunk's compile cost is superlinear
-    (PERFORMANCE.md 'Compile-cost anatomy'): the default drops to the
-    phased path."""
-    import scipy.sparse as sps
-
-    from gcge_tpu.api import _tuned_defaults
-
-    a_sp = sps.identity(5).tocsr()
-    assert _tuned_defaults("tpu", "gcg", False, a_sp, None,
-                           nev=50)["fuse"] == 20
-    assert _tuned_defaults("tpu", "gcg", False, a_sp, None,
-                           nev=400)["fuse"] == 0
 
 
 def test_cg_mixed_dense_operator_falls_back():

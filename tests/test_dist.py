@@ -22,7 +22,7 @@ from tests.conftest import laplacian_1d, laplacian_1d_eigs
 @pytest.fixture(scope="module")
 def mesh():
     if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices (CPU virtual mesh; skipped on 1-chip TPU)")
+        pytest.skip("needs 8 devices (the CPU virtual mesh)")
     return row_mesh(8)
 
 
@@ -50,43 +50,6 @@ def test_sharded_dense_matches_local(mesh, rng):
         np.asarray(op.matvec(x)),
         rtol=1e-12,
     )
-
-
-def test_sharded_dia_halo_pallas(mesh, rng, monkeypatch):
-    """Sharded DIA matvec routed through the Pallas halo-window kernels
-    (interpret mode on the CPU mesh; the on-TPU route is identical code).
-    Covers the ppermute-halo branch (narrow band) and the all-gather
-    fallback (band wider than the local block), f32 and df64."""
-    from gcge_tpu.ops.operators import DiaDF64Operator, DiaOperator
-    from gcge_tpu.parallel import dist_ops
-
-    monkeypatch.setattr(dist_ops, "_FORCE_HALO_PALLAS", True)
-    n = 1024
-    x = rng.standard_normal((n, 5))
-
-    for offs in [(-64, -1, 0, 1, 64), (-200, 0, 200)]:  # halo | all-gather
-        vals = rng.standard_normal((len(offs), n))
-        # DIA invariant (from_coo): values are 0 where i + off leaves the
-        # matrix — that's what annihilates the wraparound halo rows
-        for d, off in enumerate(offs):
-            if off > 0:
-                vals[d, n - off:] = 0.0
-            elif off < 0:
-                vals[d, :-off] = 0.0
-        dia = DiaOperator(jnp.asarray(vals), offs, n)
-        y_ref = np.asarray(dia.matvec(jnp.asarray(x)))
-
-        y64 = shard_operator(DiaDF64Operator.from_dia(dia), mesh).matvec(
-            shard_rows(mesh, jnp.asarray(x)))
-        np.testing.assert_allclose(np.asarray(y64), y_ref,
-                                   rtol=1e-9, atol=1e-11)
-
-        dia32 = DiaOperator(jnp.asarray(vals, jnp.float32), offs, n)
-        y32 = shard_operator(dia32, mesh).matvec(
-            shard_rows(mesh, jnp.asarray(x, np.float32)))
-        scale = np.abs(y_ref).max()
-        np.testing.assert_allclose(np.asarray(y32), y_ref,
-                                   rtol=1e-4, atol=1e-5 * scale)
 
 
 def test_sharded_bpcg(mesh, rng):
@@ -248,7 +211,7 @@ def test_pad_problem_generalized_sparse_mass(mesh, rng):
 @pytest.fixture(scope="module")
 def mesh2d():
     if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices (CPU virtual mesh; skipped on 1-chip TPU)")
+        pytest.skip("needs 8 devices (the CPU virtual mesh)")
     from gcge_tpu.parallel import grid_mesh
 
     return grid_mesh(4, 2)
@@ -423,7 +386,7 @@ def test_sharded_eigh_newton(mesh, rng):
     h = jnp.asarray(q * lam[None, :] @ q.T)
     h = 0.5 * (h + h.T)
 
-    # emulate the TPU's noisy warm start so the refinement has work to do
+    # a noisy warm start so the refinement has work to do
     w0, u0 = np.linalg.eigh(np.asarray(h))
     u0 = u0 + 3e-7 * rng.standard_normal((m, m)) * np.abs(lam).max() ** 0.5
     warm = (jnp.asarray(w0), jnp.asarray(u0))
@@ -458,9 +421,8 @@ def test_distributed_gcg_newton_rr(mesh):
 def test_halo_overlap_edge_corrections(mesh, rng):
     """The overlap-form halo path (interior SpMM against a zero halo +
     separate edge corrections, the PHG dataflow pattern) must be exact for
-    an ASYMMETRIC multi-diagonal band crossing several boundary offsets,
-    f64 and df64."""
-    from gcge_tpu.ops.operators import DiaDF64Operator, DiaOperator
+    an ASYMMETRIC multi-diagonal band crossing several boundary offsets."""
+    from gcge_tpu.ops.operators import DiaOperator
 
     n = 512
     offsets = (-7, -3, -1, 0, 2, 5)
@@ -477,104 +439,57 @@ def test_halo_overlap_edge_corrections(mesh, rng):
     y_ref = np.asarray(dia.matvec(x))
     y_d = np.asarray(shard_operator(dia, mesh).matvec(shard_rows(mesh, x)))
     np.testing.assert_allclose(y_d, y_ref, rtol=1e-13, atol=1e-13)
-    dia64 = DiaDF64Operator.from_dia(dia)
-    y_d64 = np.asarray(
-        shard_operator(dia64, mesh).matvec(shard_rows(mesh, x)))
-    np.testing.assert_allclose(y_d64, y_ref, rtol=1e-12, atol=1e-12)
 
 
-def test_sharded_onehot_matches_local(mesh, rng):
-    """Row-sharded one-hot irregular SpMM (ppermute halo window + the square
-    one-hot MXU kernels in interpret mode): f64 rides the df64 kernel, f32
-    the f32 kernel; both against the scipy oracle.  The irregular analogue
-    of test_sharded_dia_halo_pallas (reference: distributed CCS SpMM,
-    app_slepc.c:155-216)."""
+def _irregular_band(n, per_row, band, seed):
+    """Random symmetric-free couplings within +-band of the diagonal."""
     import scipy.sparse as sps
 
-    from gcge_tpu.ops.operators import EllOneHotOperator
-
-    n = 1024
-    # banded irregular pattern: random couplings within a +-60 band
-    rng2 = np.random.default_rng(7)
-    nnz_per = 9
-    r = np.repeat(np.arange(n), nnz_per)
-    c = r + rng2.integers(-60, 61, size=len(r))
+    rng2 = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), per_row)
+    c = r + rng2.integers(-band, band + 1, size=len(r))
     keep = (c >= 0) & (c < n)
     r, c = r[keep], c[keep]
     v = rng2.standard_normal(len(r))
-    a = sps.coo_matrix((v, (r, c)), shape=(n, n)).tocsr().tocoo()
-    op = EllOneHotOperator.from_coo(a.row, a.col, a.data, (n, n),
-                                    r_tile=64, w_tile=64, j_max=128)
-    op_d = shard_operator(op, mesh)
-    from gcge_tpu.parallel.dist_ops import OneHotShardPack
-    assert isinstance(op_d.inner, OneHotShardPack)
-    assert op_d.inner.hl <= 60 and op_d.inner.hr <= 60
+    return sps.coo_matrix((v, (r, c)), shape=(n, n)).tocsr().tocoo()
 
+
+@pytest.mark.parametrize("per_row,band,seed", [
+    (9, 60, 7),      # band inside the local row block
+    (5, 200, 11),    # band wider than the local block
+    (3, 511, 3),     # couplings across the whole matrix
+])
+def test_sharded_ell_irregular_matches_local(mesh, rng, per_row, band, seed):
+    """Row-sharded gather-ELL (all-gather + local gather SpMM) on irregular
+    patterns against the local ELL operator and the scipy oracle, f64 and
+    f32 (reference: distributed CCS SpMM, app_slepc.c:155-216)."""
+    n = 512
+    a = _irregular_band(n, per_row, band, seed)
+    op = SparseOperator.from_coo(a.row, a.col, a.data, (n, n))
+    op_d = shard_operator(op, mesh)
     x = rng.standard_normal((n, 5))
-    y_ref = a @ x
-    y64 = np.asarray(op_d.matvec(shard_rows(mesh, jnp.asarray(x))))
-    np.testing.assert_allclose(y64, y_ref, rtol=1e-11, atol=1e-11)
-    y32 = np.asarray(op_d.matvec(
+    y_local = np.asarray(op.matvec(jnp.asarray(x)))
+    y_dist = np.asarray(op_d.matvec(shard_rows(mesh, jnp.asarray(x))))
+    np.testing.assert_allclose(y_dist, y_local, rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(y_dist, a @ x, rtol=1e-12, atol=1e-12)
+    op32 = SparseOperator.from_coo(a.row, a.col, a.data, (n, n),
+                                   dtype=jnp.float32)
+    y32 = np.asarray(shard_operator(op32, mesh).matvec(
         shard_rows(mesh, jnp.asarray(x, jnp.float32))))
-    np.testing.assert_allclose(y32, y_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(y32, a @ x, rtol=2e-5, atol=2e-5)
 
 
-def test_sharded_onehot_wide_band_fallback(mesh, rng):
-    """Couplings wider than the local row block take the all-gather +
-    window-slice branch and still match the oracle."""
-    import scipy.sparse as sps
-
-    from gcge_tpu.ops.operators import EllOneHotOperator
-
-    n = 512  # ln = 64; band ~ +-200 exceeds it
-    rng2 = np.random.default_rng(11)
-    r = np.repeat(np.arange(n), 5)
-    c = r + rng2.integers(-200, 201, size=len(r))
-    keep = (c >= 0) & (c < n)
-    r, c = r[keep], c[keep]
-    v = rng2.standard_normal(len(r))
-    a = sps.coo_matrix((v, (r, c)), shape=(n, n)).tocsr().tocoo()
-    op = EllOneHotOperator.from_coo(a.row, a.col, a.data, (n, n),
-                                    r_tile=64, w_tile=64, j_max=128)
-    op_d = shard_operator(op, mesh)
-    assert op_d.inner.hl > n // 8 or op_d.inner.hr > n // 8
-    x = rng.standard_normal((n, 3))
-    y = np.asarray(op_d.matvec(shard_rows(mesh, jnp.asarray(x))))
-    np.testing.assert_allclose(y, a @ x, rtol=1e-11, atol=1e-11)
-
-
-def test_distributed_gcg_onehot(mesh):
-    """Full distributed GCG over the halo-exchange one-hot path — the
-    distributed irregular-matrix solve (the reference's cluster rig,
-    submit.sh:22-28, on SuiteSparse-class patterns)."""
-    from gcge_tpu.ops.operators import EllOneHotOperator
-
+@pytest.mark.parametrize("mixed", [False, True])
+def test_distributed_gcg_ell(mesh, mixed):
+    """Full distributed GCG over the sharded gather-ELL path, with the plain
+    f64 inner CG and with the mixed f32/f64 one."""
     n = 512
     a, h = laplacian_1d(n)
     rows, cols = np.nonzero(a)
     op_d = shard_operator(
-        EllOneHotOperator.from_coo(rows, cols, a[rows, cols], a.shape,
-                                   r_tile=64, w_tile=64, j_max=128), mesh)
-    p = GCGParams(nev=6, block_size=3, max_iter=100, verbose=0)
-    res = gcg_solve(op_d, None, p, mesh=mesh)
-    exact = laplacian_1d_eigs(n)[:6]
-    assert res.nev_conv >= 6
-    np.testing.assert_allclose(res.eval[:6], exact, rtol=1e-7)
-
-
-def test_distributed_gcg_onehot_mixed_cg(mesh):
-    """cg_mixed over the mesh: the f32 inner stages run the sharded one-hot
-    f32 kernel path, f64 refreshes the df64 path."""
-    from gcge_tpu.ops.operators import EllOneHotOperator
-
-    n = 512
-    a, h = laplacian_1d(n)
-    rows, cols = np.nonzero(a)
-    op_d = shard_operator(
-        EllOneHotOperator.from_coo(rows, cols, a[rows, cols], a.shape,
-                                   r_tile=64, w_tile=64, j_max=128), mesh)
+        SparseOperator.from_coo(rows, cols, a[rows, cols], a.shape), mesh)
     p = GCGParams(nev=6, block_size=3, max_iter=100, verbose=0,
-                  cg_mixed=True, cg_refine=2)
+                  cg_mixed=mixed, cg_refine=2)
     res = gcg_solve(op_d, None, p, mesh=mesh)
     exact = laplacian_1d_eigs(n)[:6]
     assert res.nev_conv >= 6

@@ -313,29 +313,6 @@ def test_gcg_long_run_basis_stability():
     assert np.abs(res.eval[:200] - exact[:200]).max() < 1e-9 * exact.max()
 
 
-def test_gcg_rr_gemm_osgemm_precision():
-    """rr_gemm_precision='osgemm' routes the RR Gram, Ritz recombination,
-    and ComputeP expansion through the exact-product sliced GEMMs
-    (ops.osgemm) — the TPU-f64 'auto' default.  Must converge to the same
-    spectrum as the f64 path, fused and phase-wise."""
-    n, nev = 400, 10
-    a, _ = laplacian_1d(n)
-    exact = laplacian_1d_eigs(n)
-    op = DenseOperator(jnp.asarray(a))
-    for fuse in (0, 8):
-        r = gcg_solve(op, None, GCGParams(
-            nev=nev, max_iter=80, verbose=0, fuse=fuse,
-            rr_gemm_precision="osgemm", orth_proj_precision="osgemm"))
-        assert r.nev_conv >= nev
-        np.testing.assert_allclose(r.eval[:nev], exact[:nev], rtol=1e-7)
-    # restart-growth path exercises _expand_ritz under osgemm
-    rg = gcg_solve(op, None, GCGParams(nev=nev, block_size=3, nev_max=20,
-                                       nev_init=11, max_iter=120, verbose=0,
-                                       fuse=4, rr_gemm_precision="osgemm"))
-    assert rg.nev_conv >= nev
-    np.testing.assert_allclose(rg.eval[:nev], exact[:nev], rtol=1e-7)
-
-
 def test_multi_max_caps_backoff():
     """The gapMin backoff never walks back more than multi_max positions
     (the reference's multiMax, asserted <= block_size at
@@ -432,26 +409,3 @@ def test_fuse_hotswap_mid_solve(monkeypatch):
     assert res3.nev_conv >= 6
     np.testing.assert_allclose(res3.eval[:6], laplacian_1d_eigs(n)[:6],
                                rtol=1e-7)
-
-
-def test_auto_nevmax_tpu_clamp(monkeypatch):
-    """On TPU, an AUTO nev_max clamps to keep the projected size m < 768
-    (the f32-warm RR stall, PERFORMANCE.md round-5 factor isolation); an
-    explicit nev_max is honored."""
-    import jax as _jax
-
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    p = GCGParams(nev=400, verbose=0).resolved(100_000)
-    assert p.nev_max + 2 * p.block_size < 768, p.nev_max
-    assert p.nev_max >= p.nev + p.block_size
-    # explicit nev_max: honored verbatim
-    p2 = GCGParams(nev=400, nev_max=800, verbose=0).resolved(100_000)
-    assert p2.nev_max == 800
-    # off-TPU: the reference rule nevMax = 2*nev stands
-    monkeypatch.setattr(_jax, "default_backend", lambda: "cpu")
-    p3 = GCGParams(nev=400, verbose=0).resolved(100_000)
-    assert p3.nev_max == 800
-    # small nev: unaffected everywhere
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    p4 = GCGParams(nev=50, verbose=0).resolved(100_000)
-    assert p4.nev_max == 100

@@ -76,7 +76,7 @@ def test_bamg_generalized_mass_coarsening():
 
 
 def test_amg_preconditioned_gcg(rng):
-    """A single AMG V-cycle as the inner-CG preconditioner (the TPU form of
+    """A single AMG V-cycle as the inner-CG preconditioner (the form of
     the reference's flag=2 'external solver preconditions BPCG' mode) must
     cut GCG iterations on an ill-conditioned operator."""
     import jax.numpy as jnp
